@@ -1,6 +1,6 @@
-# Deployment image for meterelf-tpu (reference ships an ubuntu+opencv
-# image; the TPU build needs jax[tpu] and a C toolchain for the native
-# JPEG decoder, which builds on first import).
+# Deployment image for meterelf-jax on an NVIDIA GPU (the host provides
+# the driver; the CUDA libraries come with the jax[cuda12] wheels). The
+# native JPEG decoder builds on first use with gcc against libjpeg-turbo.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -9,14 +9,11 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
 
 WORKDIR /app
 COPY pyproject.toml README.md ./
-COPY meterelf_tpu ./meterelf_tpu
+COPY meterelf_jax ./meterelf_jax
 
-# TPU runtime: jax[tpu] resolves libtpu on Cloud TPU VMs
-RUN pip install --no-cache-dir "jax[tpu]" -f \
-        https://storage.googleapis.com/jax-releases/libtpu_releases.html \
-    && pip install --no-cache-dir .
+RUN pip install --no-cache-dir ".[cuda12]"
 
-ENTRYPOINT ["meterelf-tpu"]
+ENTRYPOINT ["meterelf-jax"]
 
 # --- dev stage: the type-correctness gate the build image can't run ---
 # (the build sandbox has no network, so mypy cannot be installed there;
@@ -29,9 +26,9 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
     && rm -rf /var/lib/apt/lists/*
 WORKDIR /app
 COPY pyproject.toml README.md requirements.lock ./
-COPY meterelf_tpu ./meterelf_tpu
+COPY meterelf_jax ./meterelf_jax
 COPY tests ./tests
-RUN pip install --no-cache-dir mypy pytest pyyaml numpy pillow jax \
+RUN pip install --no-cache-dir mypy pytest pyyaml numpy pillow scipy jax \
     && pip install --no-cache-dir --no-deps .
 # the gate: near-strict mypy over the package (pyproject.toml [tool.mypy])
-RUN python -m mypy meterelf_tpu
+RUN python -m mypy meterelf_jax

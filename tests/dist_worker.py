@@ -24,16 +24,16 @@ def main() -> None:
 
     import jax
 
-    from meterelf_tpu.parallel.mesh import (
+    from meterelf_jax.parallel.mesh import (
         aggregate_metrics,
         data_parallel_decoder,
         initialize_distributed,
         make_mesh,
         shard_host_batch,
     )
-    from meterelf_tpu import synthetic
-    from meterelf_tpu.io import jpeg as jio
-    from meterelf_tpu.pipeline.decode import MeterDecoder
+    from meterelf_jax import synthetic
+    from meterelf_jax.io import jpeg as jio
+    from meterelf_jax.pipeline.decode import MeterDecoder
 
     assert initialize_distributed() is True
     pid = jax.process_index()

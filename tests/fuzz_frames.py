@@ -1,10 +1,10 @@
 """Shared adversarial-frame generator for the fuzz suites.
 
-Used by tests/test_oracle_fuzz.py (CPU: our XLA paths vs the shimmed
-reference executed as an oracle) and tests/test_tpu_fuzz.py (real chip:
-the full Pallas path vs the oracle-validated XLA path). Keeping ONE
-generator guarantees the on-chip gate covers the same input space the
-reference-oracle run validated (VERDICT r3 weak #1 / next #2).
+Used by tests/test_oracle_fuzz.py (CPU: the decode graph vs the shimmed
+reference executed as an oracle) and chip_smoke.py (the graph on the GPU
+vs the same graph on the CPU). Keeping ONE generator guarantees the
+on-chip check covers the same input space the reference-oracle run
+validated.
 """
 import numpy as np
 
@@ -15,9 +15,8 @@ def assert_results_equal(a, b, label):
     between score formulations (documented); its THRESHOLD DECISION is
     part of err and argmax is pinned via match_x/match_y.
 
-    Shared by tests/test_tpu_fuzz.py (full campaigns) and bench.py's
-    32-frame mini gate (driver-captured every round)."""
-    from meterelf_tpu.errors import ErrCode
+    Shared by chip_smoke.py's GPU-vs-CPU phase and the tests."""
+    from meterelf_jax.errors import ErrCode
 
     np.testing.assert_array_equal(a.err, b.err, err_msg=f"{label}: err")
     np.testing.assert_array_equal(a.match_x, b.match_x,

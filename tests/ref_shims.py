@@ -20,7 +20,7 @@ def shimmed_reference():
     import cv2
     import yaml
 
-    from meterelf_tpu.api import _host_hls
+    from meterelf_jax.api import _host_hls
 
     real_yaml_load = yaml.load
     yaml.load = lambda stream, Loader=None: real_yaml_load(

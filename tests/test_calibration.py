@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from meterelf_tpu import calibration
+from meterelf_jax import calibration
 
 pytestmark = pytest.mark.needs_samples
 
@@ -62,9 +62,9 @@ def test_boundary_trace_matches_cv2_points():
 def test_find_dial_centers_full():
     """Full reference-parity calibration over all 79 good sample-images1
     frames (reference tests/test_meterelf.py:119-144): 4 centers within
-    0.05 px, exact diameters, sorted by x. ~25 s — in the default suite
-    since round 3 (VERDICT r2 weak #6)."""
-    from meterelf_tpu.params import Params
+    0.05 px, exact diameters, sorted by x. ~25 s — in the default
+    suite."""
+    from meterelf_jax.params import Params
 
     old = os.getcwd()
     os.chdir("/root/reference/sample-images1")
@@ -84,11 +84,11 @@ def test_find_dial_centers_full():
 
 
 def test_calibration_cli(capsys):
-    """`python -m meterelf_tpu.calibration` prints YAML-pasteable
+    """`python -m meterelf_jax.calibration` prints YAML-pasteable
     center/diameter fields for each dial (new-camera bring-up)."""
     from glob import glob
 
-    from meterelf_tpu import calibration
+    from meterelf_jax import calibration
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:34]
     if not files:
@@ -107,7 +107,7 @@ def test_calibration_cli(capsys):
 
 
 def test_calibration_cli_usage_error(capsys):
-    from meterelf_tpu import calibration
+    from meterelf_jax import calibration
 
     with pytest.raises(SystemExit):
         calibration.main([])

@@ -10,8 +10,8 @@ from unittest.mock import patch
 
 import pytest
 
-import meterelf_tpu
-from meterelf_tpu import cli, debugging
+import meterelf_jax
+from meterelf_jax import cli, debugging
 
 pytestmark = pytest.mark.needs_samples
 
@@ -63,8 +63,8 @@ def test_debug_reraises_with_exact_message(capsys, filename, msg):
 
 def test_run_as_module():
     with patch.object(cli, "main") as main_mock:
-        sys.modules.pop("meterelf_tpu.__main__", None)
-        runpy.run_module(meterelf_tpu.__name__, run_name="__main__")
+        sys.modules.pop("meterelf_jax.__main__", None)
+        runpy.run_module(meterelf_jax.__name__, run_name="__main__")
         main_mock.assert_called_with()
 
 
@@ -72,7 +72,7 @@ def test_value_zero_prints_empty():
     """The reference's `if data.value` quirk: a 0.000 reading prints as
     an empty value (meterelf/_main.py:17) — asserted on the REAL
     formatting path (cli.format_result), not a re-implementation."""
-    from meterelf_tpu.api import MeterImageData
+    from meterelf_jax.api import MeterImageData
 
     zero = MeterImageData("f.jpg", 0.0, None, {"value": 0.0})
     assert cli.format_result(zero) == "f.jpg: "

@@ -59,8 +59,8 @@ def _capture(fn, argv):
 def test_cli_fuzz_against_reference_cli(tmp_path):
     import yaml
 
-    from meterelf_tpu import synthetic
-    from meterelf_tpu.cli import main as our_main
+    from meterelf_jax import synthetic
+    from meterelf_jax.cli import main as our_main
     from ref_shims import shimmed_reference
 
     camera = synthetic.DEFAULT_CAMERA

@@ -7,37 +7,39 @@ wherever mypy is installed (config lives in pyproject.toml) and skips
 with a reason otherwise, so dev environments enforce it.
 """
 import importlib.util
+import os
 import subprocess
 import sys
 
 import pytest
 
-TARGETS = ["meterelf_tpu", "tests", "tools", "bench.py",
-           "__graft_entry__.py"]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TARGETS = ["meterelf_jax", "tests", "tools", "bench.py",
+           "__graft_entry__.py", "chip_smoke.py"]
 
 
 def test_lint_clean():
-    sys.path.insert(0, "/root/repo/tools")
+    sys.path.insert(0, os.path.join(REPO, "tools"))
     try:
         import lint
     finally:
         sys.path.pop(0)
-    findings = lint.lint([f"/root/repo/{t}" for t in TARGETS])
+    findings = lint.lint([os.path.join(REPO, t) for t in TARGETS])
     assert not findings, "\n".join(
         f"{p}:{ln}: {msg}" for (p, ln, msg) in findings)
 
 
 def test_lint_signature_checks_fire(tmp_path):
     """The SIG1xx cross-module call/signature checks (the in-repo slice
-    of the type gate, VERDICT r3 Missing #1) must actually detect arity
+    of the type gate) must actually detect arity
     violations — too many positionals, missing required args, unknown
     keywords, positional+keyword duplicates."""
-    sys.path.insert(0, "/root/repo/tools")
+    sys.path.insert(0, os.path.join(REPO, "tools"))
     try:
         import lint
     finally:
         sys.path.pop(0)
-    pkg = tmp_path / "meterelf_tpu"
+    pkg = tmp_path / "meterelf_jax"
     pkg.mkdir()
     (pkg / "a.py").write_text(
         '"""a."""\ndef f(x: int, y: int = 0) -> int:\n    return x + y\n')
@@ -57,6 +59,6 @@ def test_mypy_if_available():
                     "pinned in requirements.lock "
                     "(config: pyproject.toml [tool.mypy])")
     r = subprocess.run(
-        [sys.executable, "-m", "mypy", "meterelf_tpu"],
-        capture_output=True, text=True, cwd="/root/repo", timeout=300)
+        [sys.executable, "-m", "mypy", "meterelf_jax"],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stdout[-4000:]

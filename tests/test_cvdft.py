@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import pytest
 
-from meterelf_tpu.ops import cvdft
+from meterelf_jax.ops import cvdft
 
 F = np.float32
 SAMPLE1 = "/root/reference/sample-images1"
@@ -130,7 +130,7 @@ def block_cv2(monkeypatch):
 def test_golden_match_vals_without_cv2(block_cv2, params1):
     """The two pinned strings (reference tests/test_meterelf.py:164-167)
     from our own DFT replica, cv2 blocked."""
-    from meterelf_tpu.api import _parity_match_val
+    from meterelf_jax.api import _parity_match_val
 
     assert str(_parity_match_val(
         f"{SAMPLE1}/20180814021309-01-e01.jpg", params1)) == "0.0"
@@ -146,8 +146,8 @@ def test_cli_error_frames_without_cv2(params1):
     code = (
         "import sys\n"
         "sys.modules['cv2'] = None  # poisons any import attempt\n"
-        "from meterelf_tpu.cli import main\n"
-        "main(['meterelf-tpu', %r,\n"
+        "from meterelf_jax.cli import main\n"
+        "main(['meterelf-jax', %r,\n"
         "      %r,\n"
         "      %r])\n"
         % (f"{SAMPLE1}/params.yml",
@@ -167,13 +167,13 @@ def test_cli_error_frames_without_cv2(params1):
 
 
 def test_no_static_cv2_imports_in_package():
-    """No module under meterelf_tpu/ may import cv2 (runtime
+    """No module under meterelf_jax/ may import cv2 (runtime
     independence is a product guarantee, not an accident)."""
     import pathlib
 
-    import meterelf_tpu
+    import meterelf_jax
 
-    pkg = pathlib.Path(meterelf_tpu.__file__).parent
+    pkg = pathlib.Path(meterelf_jax.__file__).parent
     offenders = []
     for py in pkg.rglob("*.py"):
         text = py.read_text()

@@ -12,7 +12,7 @@ SAMPLE1 = "/root/reference/sample-images1"
 
 @pytest.mark.needs_samples
 def test_render_masks(params1, tmp_path):
-    from meterelf_tpu.debugviz import render_masks
+    from meterelf_jax.debugviz import render_masks
 
     paths = render_masks(params1, str(tmp_path))
     assert len(paths) == 4
@@ -27,7 +27,7 @@ def test_render_masks(params1, tmp_path):
 
 @pytest.mark.needs_samples
 def test_render_overlay(params1, tmp_path):
-    from meterelf_tpu.debugviz import render_overlay
+    from meterelf_jax.debugviz import render_overlay
 
     fn = sorted(glob(f"{SAMPLE1}/2018*.jpg"))[2]
     out = render_overlay(fn, params1, str(tmp_path), scale=2)
@@ -46,7 +46,7 @@ def test_render_overlay(params1, tmp_path):
 def test_cli_debug_mode_writes_overlays(monkeypatch, tmp_path, capsys):
     """DEBUG mode: dict suffix on stdout + overlay/mask PNGs on disk
     (headless analog of reference _reading.py:43-78, _dial_data.py:50-54)."""
-    from meterelf_tpu import cli, debugging
+    from meterelf_jax import cli, debugging
 
     monkeypatch.setattr(debugging, "DEBUG", {"masks"})
     monkeypatch.setenv("METERELF_DEBUG_DIR", str(tmp_path))
@@ -62,7 +62,7 @@ def test_cli_debug_mode_writes_overlays(monkeypatch, tmp_path, capsys):
 def test_hls_full_to_bgr_matches_standard_formula():
     """The inverse conversion agrees with the standard HLS->RGB formula
     (colorsys) within 1 LSB, and is exact on gray (s == 0)."""
-    from meterelf_tpu.ops.color import hls_full_to_bgr
+    from meterelf_jax.ops.color import hls_full_to_bgr
 
     rng = np.random.default_rng(7)
     hls = rng.integers(0, 256, size=(257, 3), dtype=np.int32)
@@ -78,7 +78,7 @@ def test_hls_full_to_bgr_matches_standard_formula():
 
 def test_hls_full_to_bgr_undoes_hue_shift():
     """The hue_shift wrap applied by bgr_to_hls_full is undone exactly."""
-    from meterelf_tpu.ops.color import bgr_to_hls_full, hls_full_to_bgr
+    from meterelf_jax.ops.color import bgr_to_hls_full, hls_full_to_bgr
 
     rng = np.random.default_rng(11)
     bgr = rng.integers(0, 256, size=(64, 3), dtype=np.uint8)
@@ -89,7 +89,7 @@ def test_hls_full_to_bgr_undoes_hue_shift():
 
 
 def test_stage_timers_report():
-    from meterelf_tpu.profiling import StageTimers
+    from meterelf_jax.profiling import StageTimers
 
     tm = StageTimers()
     with tm.stage("alpha"):
@@ -104,7 +104,7 @@ def test_stage_timers_report():
 
 
 def test_device_trace_noop():
-    from meterelf_tpu.profiling import device_trace
+    from meterelf_jax.profiling import device_trace
 
     with device_trace(None):
         pass
@@ -117,7 +117,7 @@ def test_serve_overlays_live_viewer(params1):
     with no frame yet, /frame.png 404s gracefully."""
     import urllib.request
 
-    from meterelf_tpu.debugviz import serve_overlays
+    from meterelf_jax.debugviz import serve_overlays
 
     holder = {"fn": None}
     srv = serve_overlays(params1, lambda: holder["fn"], 0, scale=1)

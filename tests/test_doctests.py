@@ -2,7 +2,7 @@
 its package; the angle convention doctest is the one real example)."""
 import doctest
 
-import meterelf_tpu.params as params_mod
+import meterelf_jax.params as params_mod
 
 
 def test_params_doctests():

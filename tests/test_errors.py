@@ -1,5 +1,5 @@
 """Error message rendering parity (reference: meterelf/exceptions.py)."""
-from meterelf_tpu.errors import (
+from meterelf_jax.errors import (
     DialAngleDeterminingError,
     DialsNotFoundError,
     ImageLoadingError,
@@ -41,7 +41,7 @@ def test_loading_error_is_ioerror():
 
 def test_error_class_registry():
     """Graph error codes map to their host exception classes."""
-    from meterelf_tpu.errors import ErrCode, error_class_for
+    from meterelf_jax.errors import ErrCode, error_class_for
 
     assert error_class_for(ErrCode.LOAD) is ImageLoadingError
     assert error_class_for(int(ErrCode.DIALS_NOT_FOUND)) is DialsNotFoundError

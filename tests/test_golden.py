@@ -15,7 +15,7 @@ from glob import glob
 
 import pytest
 
-from meterelf_tpu.cli import main
+from meterelf_jax.cli import main
 
 pytestmark = pytest.mark.needs_samples
 

@@ -7,9 +7,9 @@ from glob import glob
 import numpy as np
 import pytest
 
-from meterelf_tpu.io import jpeg as jio
-from meterelf_tpu.params import Params
-from meterelf_tpu.types import Rect
+from meterelf_jax.io import jpeg as jio
+from meterelf_jax.params import Params
+from meterelf_jax.types import Rect
 
 S1 = "/root/reference/sample-images1"
 S2 = "/root/reference/sample-images2"
@@ -90,22 +90,19 @@ def test_u8_bytes_loader_matches_load_crops(params1):
 
     import jax
 
-    from meterelf_tpu.pipeline.decode import pack_crops_device
+    from meterelf_jax.pipeline.decode import pack_crops_device
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))
     datas = [open(f, "rb").read() for f in files]
-    pad = jio.frontend_pad_hw()
 
     crops_u8, ok1 = jio.load_crop_bytes_u8(datas, params1.meter_rect)
     crops_ref, ok2 = jio.load_crops(files, params1.meter_rect)
     assert np.array_equal(ok1, ok2)
     assert np.array_equal(crops_u8[ok1], crops_ref[ok2])
 
-    packed_dev = np.asarray(
-        jax.jit(pack_crops_device, static_argnames="pad_hw")(
-            crops_u8, pad_hw=pad))
+    packed_dev = np.asarray(jax.jit(pack_crops_device)(crops_u8))
     packed_host = jio.pack_crops(np.where(ok1[:, None, None, None],
-                                          crops_u8, 0), pad_hw=pad)
+                                          crops_u8, 0))
     assert np.array_equal(packed_dev[ok1], packed_host[ok1])
 
 
@@ -118,12 +115,10 @@ def test_packed_loader_matches_crop_plus_pack(params1):
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))
     datas = [open(f, "rb").read() for f in files]
-    pad = jio.frontend_pad_hw()
-
     packed1, ok1 = jio.load_packed_crops_from_bytes(
-        datas, params1.meter_rect, pad, num_threads=2)
+        datas, params1.meter_rect, num_threads=2)
     crops, ok2 = jio.load_crops(files, params1.meter_rect)
-    packed2 = jio.pack_crops(crops, pad_hw=pad)
+    packed2 = jio.pack_crops(crops)
 
     assert np.array_equal(ok1, ok2)
     assert np.array_equal(packed1, packed2)
@@ -132,7 +127,7 @@ def test_packed_loader_matches_crop_plus_pack(params1):
 def test_decoder_selfcheck_runs_and_pins_parity(monkeypatch):
     """The embedded-fixture self-check passed at lib load (or _get_lib
     would have raised); a digest drift must raise with diagnostics."""
-    from meterelf_tpu.io import _selfcheck_data as sd
+    from meterelf_jax.io import _selfcheck_data as sd
 
     lib = jio._get_lib()
     jio._decoder_selfcheck(lib)  # idempotent pass on the live libjpeg

@@ -16,8 +16,8 @@ import os
 import numpy as np
 import pytest
 
-from meterelf_tpu.io import jpeg as jio
-from meterelf_tpu.types import Rect
+from meterelf_jax.io import jpeg as jio
+from meterelf_jax.types import Rect
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -31,7 +31,7 @@ def _images(rng):
     grad = np.stack([(xx * 255 // 299), (yy * 255 // 199),
                      ((xx + yy) % 256)], -1).astype(np.uint8)
     yield "gradient_300x200", grad
-    from meterelf_tpu import synthetic
+    from meterelf_jax import synthetic
     frame_bgr = synthetic.render_frame([1.5, 2.5, 3.5, 4.5])
     yield "synthetic_meter", frame_bgr[..., ::-1]  # to RGB
 

@@ -5,9 +5,9 @@ The coefficient feed ships entropy-decoded DCT blocks and finishes the
 decode in the jitted graph; its output must be byte-identical to the
 pixel path (io/native region decode), which is itself the verified
 byte-exact match for the reference's 2019 OpenCV wheel (SURVEY.md
-§8bis). Oracles here: the pixel path over the whole golden corpus, and
-PIL-encoded out-of-corpus fuzz frames (odd sizes, edge-touching rects,
-quality sweep, layout fallbacks)."""
+§8bis). Oracles here: the pixel path over the committed synthetic corpus
+(tests/data/synthetic), and PIL-encoded fuzz frames (odd sizes,
+edge-touching rects, quality sweep, layout fallbacks)."""
 import glob
 import io as _io
 import os
@@ -17,49 +17,45 @@ import pytest
 
 import jax
 
-from meterelf_tpu.io import jpeg as jio
-from meterelf_tpu.ops import jpegdec
-from meterelf_tpu.types import Rect
+from meterelf_jax.io import jpeg as jio
+from meterelf_jax.ops import jpegdec
+from meterelf_jax.types import Rect
 
-SAMPLE1 = "/root/reference/sample-images1"
-SAMPLE2 = "/root/reference/sample-images2"
-RECT1 = Rect(top_left=(50, 160), bottom_right=(300, 410))
-RECT2 = Rect(top_left=(70, 270), bottom_right=(290, 405))
-FRAME_WH = (480, 640)
-# the two corrupt sample-images1 frames are also the two 640x480 ones:
-# the coefficient feed rejects the unexpected frame size (static clamp
-# geometry) and the caller's pixel fallback handles them
-ODD_FRAMES = {"20180814021309-01-e01.jpg", "20180814021310-00-e02.jpg"}
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "synthetic")
+DEFAULT_DIR = os.path.join(FIXTURES, "default")
+RECT1 = Rect(top_left=(50, 160), bottom_right=(300, 410))  # default camera
+FRAME_WH = (640, 480)
 
 
-def _backhalf_batch(datas, rect, frame_wh, pad_hw=None):
+def _fixture_files(camera_dir):
+    files = sorted(glob.glob(os.path.join(camera_dir, "*.jpg")))
+    assert len(files) == 48
+    return files
+
+
+def _backhalf_batch(datas, rect, frame_wh):
     win = jpegdec.coef_window(rect, frame_wh[0], frame_wh[1])
     cy, cb, cr, qt, ok = jio.read_coefs_batch(datas, win, frame_wh)
     fn = jax.jit(
-        lambda a, b, c, q: jpegdec.backhalf_to_packed(
-            a, b, c, q, win, pad_hw=pad_hw))
+        lambda a, b, c, q: jpegdec.backhalf_to_packed(a, b, c, q, win))
     return np.asarray(fn(cy, cb, cr, qt)), ok
 
 
-@pytest.mark.parametrize("sample_dir,rect", [
-    (SAMPLE1, RECT1), (SAMPLE2, RECT2)])
-def test_corpus_coef_feed_matches_pixel_path(sample_dir, rect):
-    files = sorted(glob.glob(os.path.join(sample_dir, "*.jpg")))
-    assert files
+def test_corpus_coef_feed_matches_pixel_path(fixture_camera):
+    """Every committed frame, truncated ones included, decodes through
+    the coefficient feed exactly like the pixel path."""
+    _name, camera_dir, params = fixture_camera
+    rect = params.meter_rect
+    files = _fixture_files(camera_dir)
     datas = [open(f, "rb").read() for f in files]
     packed_px, ok_px = jio.load_packed_crops_from_bytes(
-        datas, rect, (rect.height, rect.width))
+        datas, rect)
     packed_cf, ok_cf = _backhalf_batch(datas, rect, FRAME_WH)
-    fallbacks = []
+    assert ok_cf.all() and ok_px.all()
     for i, f in enumerate(files):
-        if not ok_cf[i]:
-            fallbacks.append(os.path.basename(f))
-            continue
-        assert ok_px[i]
         np.testing.assert_array_equal(
             packed_cf[i], packed_px[i], err_msg=os.path.basename(f))
-    assert set(fallbacks) == (
-        ODD_FRAMES if sample_dir == SAMPLE1 else set())
 
 
 def _encode(arr_rgb, **kw):
@@ -99,7 +95,7 @@ def test_fuzz_coef_feed_matches_pixel_path():
             data = _encode(_rng_frame(rng, w, h), quality=q,
                            subsampling=2)   # 4:2:0
             packed_px, ok_px = jio.load_packed_crops_from_bytes(
-                [data], rect, (rect.height, rect.width))
+                [data], rect)
             packed_cf, ok_cf = _backhalf_batch([data], rect, (w, h))
             assert ok_px[0] and ok_cf[0], (w, h, q, rect)
             np.testing.assert_array_equal(
@@ -122,7 +118,7 @@ def test_truncated_files_match_pixel_path():
     for cut in cuts:
         trunc = data[:cut]
         packed_px, ok_px = jio.load_packed_crops_from_bytes(
-            [trunc], rect, (rect.height, rect.width))
+            [trunc], rect)
         packed_cf, ok_cf = _backhalf_batch([trunc], rect, (w, h))
         assert bool(ok_cf[0]) == bool(ok_px[0]), cut
         if not ok_cf[0]:
@@ -150,7 +146,7 @@ def test_restart_markers_match_pixel_path():
     assert b"\xff\xd0" in data or b"\xff\xd1" in data, \
         "encoder produced no restart markers"
     packed_px, ok_px = jio.load_packed_crops_from_bytes(
-        [data], rect, (rect.height, rect.width))
+        [data], rect)
     packed_cf, ok_cf = _backhalf_batch([data], rect, (w, h))
     assert ok_px[0] and ok_cf[0]
     np.testing.assert_array_equal(packed_cf[0], packed_px[0])
@@ -214,18 +210,16 @@ def test_16bit_quant_tables_take_pixel_fallback():
     fast reader at the DQT parse, the libjpeg fallback at the quantval
     copy — and load_coef_feed must route it through the pixel-fallback
     slots, which decode it exactly like libjpeg."""
-    fn = os.path.join(SAMPLE1, "20180814215230-01-e136.jpg")
-    data = open(fn, "rb").read()
-    wide = _widen_dqt(data, scale=9)       # values up to ~2.3k > 255
+    data = open(_fixture_files(DEFAULT_DIR)[0], "rb").read()
+    wide = _widen_dqt(data, scale=64)      # q95 tables: max well > 255
     win = jpegdec.coef_window(RECT1, *FRAME_WH)
     *_, ok = jio.read_coefs_batch([data, wide], win, FRAME_WH)
     assert ok[0] and not ok[1]
-    pad_hw = jio.frontend_pad_hw()
     *_, load_ok, fb_packed, fb_idx = jio.load_coef_feed(
-        [data, wide], RECT1, FRAME_WH, pad_hw)
+        [data, wide], RECT1, FRAME_WH)
     assert load_ok.all() and fb_idx[0] == 1
     full = jio._decode_bytes_full(wide)
-    ref = jio.pack_crops(jio.crop_rect(full, RECT1)[None], pad_hw)[0]
+    ref = jio.pack_crops(jio.crop_rect(full, RECT1)[None])[0]
     np.testing.assert_array_equal(np.asarray(fb_packed[0]), ref)
     # 16-bit precision with SAFE (<= 255) values is accepted by the
     # fallback reader and remains within the fused kernel's range
@@ -240,7 +234,7 @@ def test_plane_layout_matches_block_layout():
     must be exactly the block layout rearranged — over corpus frames
     (fast reader) and PIL fuzz frames (both readers), including the
     chroma planes and ok flags."""
-    files = sorted(glob.glob(os.path.join(SAMPLE1, "*.jpg")))[:12]
+    files = _fixture_files(DEFAULT_DIR)[:12]
     datas = [open(f, "rb").read() for f in files]
     rng = np.random.default_rng(3)
     datas.append(_encode(_rng_frame(rng, 480, 640), quality=90,
@@ -261,119 +255,6 @@ def test_plane_layout_matches_block_layout():
         p[1], to_plane(b[1], win.lbh // 2, win.lbw // 2))
     np.testing.assert_array_equal(
         p[2], to_plane(b[2], win.lbh // 2, win.lbw // 2))
-
-
-def test_fused_backhalf_matches_xla():
-    """The fully fused Pallas back-half (dequant + int8-limb MXU IDCT +
-    upsample + color + pack, ops/pallas_jpeg.fused_backhalf_planes)
-    must be bit-identical to the XLA block-layout graph — on corpus
-    frames AND on adversarial full-range coefficients (|coef| up to
-    32767, qt up to 255), where the mod-2^32 wraparound semantics of
-    the limb decomposition are what's under test."""
-    from meterelf_tpu.ops.pallas_jpeg import fused_backhalf_planes
-
-    dev = jax.config.jax_default_device or jax.devices()[0]
-    interpret = dev.platform != "tpu"
-    if interpret and not os.environ.get("METERELF_FULL_GOLDEN"):
-        pytest.skip("interpret-mode compile of the fused back-half "
-                    "takes minutes on CPU: set METERELF_FULL_GOLDEN=1 "
-                    "(runs always on TPU)")
-    win = jpegdec.coef_window(RECT1, *FRAME_WH)
-    pad_hw = (256, 256)
-
-    files = sorted(glob.glob(os.path.join(SAMPLE1, "*.jpg")))[:4]
-    datas = [open(f, "rb").read() for f in files]
-    fy, fcb, fcr, qt, ok = jio.read_coefs_batch(
-        datas, win, FRAME_WH, plane_layout=True)
-    by, bcb, bcr, qt2, _ = jio.read_coefs_batch(datas, win, FRAME_WH)
-    ref = np.asarray(jax.jit(
-        lambda a, b, c, q: jpegdec.backhalf_to_packed(
-            a, b, c, q, win, pad_hw=pad_hw))(by, bcb, bcr, qt2))
-    got = np.asarray(jax.jit(
-        lambda a, b, c, q: fused_backhalf_planes(
-            a, b, c, q, win, pad_hw, interpret=interpret))(
-                fy, fcb, fcr, qt))
-    np.testing.assert_array_equal(got[ok], ref[ok])
-
-    rng = np.random.default_rng(20260819)
-    B = 2
-    lh, lw = win.lbh * 8, win.lbw * 8
-    fy_a = rng.integers(-32768, 32768, (B, lh, lw)).astype(np.int16)
-    fcb_a = rng.integers(-32768, 32768,
-                         (B, lh // 2, lw // 2)).astype(np.int16)
-    fcr_a = rng.integers(-32768, 32768,
-                         (B, lh // 2, lw // 2)).astype(np.int16)
-    qt_a = rng.integers(1, 256, (B, 3, 64)).astype(np.uint16)
-
-    def to_blocks(fp, bh, bw):
-        return (fp.reshape(B, bh, 8, bw, 8).transpose(0, 1, 3, 2, 4)
-                .reshape(B, bh * bw, 64))
-
-    ref_a = np.asarray(jax.jit(
-        lambda a, b, c, q: jpegdec.backhalf_to_packed(
-            a, b, c, q, win, pad_hw=pad_hw))(
-            to_blocks(fy_a, win.lbh, win.lbw),
-            to_blocks(fcb_a, win.lbh // 2, win.lbw // 2),
-            to_blocks(fcr_a, win.lbh // 2, win.lbw // 2), qt_a))
-    got_a = np.asarray(jax.jit(
-        lambda a, b, c, q: fused_backhalf_planes(
-            a, b, c, q, win, pad_hw, interpret=interpret))(
-                fy_a, fcb_a, fcr_a, qt_a))
-    np.testing.assert_array_equal(got_a, ref_a)
-
-
-def test_fused_backhalf_unaligned_geometry():
-    """Round-4 generalization gate: a synthetic window with EVERY
-    formerly-excluded property — odd crop row origin (oy=13), non-128
-    plane width (lw=80), staging pad taller AND wider than the window
-    (96x128 vs 80x80) — must be bit-identical between the fused Pallas
-    back-half (roll + zero-fill + lane-pad paths) and the XLA tail.
-    Small shapes keep interpret mode fast enough for the CPU suite."""
-    from meterelf_tpu.ops.pallas_jpeg import fused_backhalf_planes
-    from meterelf_tpu.types import Rect
-
-    dev = jax.config.jax_default_device or jax.devices()[0]
-    interpret = dev.platform != "tpu"
-    rect = Rect((9, 13), (9 + 61, 13 + 59))     # odd origin, odd size
-    win = jpegdec.coef_window(rect, 128, 96)
-    assert win.oy % 8 != 0 and (8 * win.lbw) % 128 != 0
-    pad_hw = (96, 128)
-    assert pad_hw[0] > 8 * win.lbh or win.oy + pad_hw[0] > 8 * win.lbh
-
-    rng = np.random.default_rng(20260820)
-    B = 1
-    lh, lw = win.lbh * 8, win.lbw * 8
-    fy = rng.integers(-2048, 2048, (B, lh, lw)).astype(np.int16)
-    fcb = rng.integers(-2048, 2048, (B, lh // 2, lw // 2)).astype(np.int16)
-    fcr = rng.integers(-2048, 2048, (B, lh // 2, lw // 2)).astype(np.int16)
-    qt = rng.integers(1, 256, (B, 3, 64)).astype(np.uint16)
-
-    def to_blocks(fp, bh, bw):
-        return (fp.reshape(B, bh, 8, bw, 8).transpose(0, 1, 3, 2, 4)
-                .reshape(B, bh * bw, 64))
-
-    ref = np.asarray(jax.jit(
-        lambda a, b, c, q: jpegdec.backhalf_to_packed(
-            a, b, c, q, win, pad_hw=pad_hw))(
-            to_blocks(fy, win.lbh, win.lbw),
-            to_blocks(fcb, win.lbh // 2, win.lbw // 2),
-            to_blocks(fcr, win.lbh // 2, win.lbw // 2), qt))
-    old_gt = os.environ.get("METERELF_JPEG_TAIL_GT")
-    import meterelf_tpu.ops.pallas_jpeg as pj
-    gt_save = pj.GT
-    pj.GT = 1   # 1-image group: keeps the interpret trace small
-    try:
-        got = np.asarray(jax.jit(
-            lambda a, b, c, q: fused_backhalf_planes(
-                a, b, c, q, win, pad_hw, interpret=interpret))(
-                    fy, fcb, fcr, qt))
-    finally:
-        pj.GT = gt_save
-        del old_gt
-    np.testing.assert_array_equal(got, ref)
-    # the staging pad outside the crop must be exactly zero
-    assert (got[:, rect.height:, :] == 0).all()
-    assert (got[:, :, rect.width:] == 0).all()
 
 
 def _segments(data):
@@ -416,8 +297,8 @@ def test_fast_reader_matches_libjpeg_fallback():
     """The fast baseline coefficient reader (MEJ_FAST_COEFS=1, the
     default) must be indistinguishable from the libjpeg suspension
     fallback (=0): identical coefficients, quant tables, AND ok flags —
-    including streams engineered to probe its header-validation edges
-    (ADVICE r2): Adobe APP14 transform=0 without JFIF (libjpeg resolves
+    including streams engineered to probe its header-validation edges:
+    Adobe APP14 transform=0 without JFIF (libjpeg resolves
     RGB -> must fall back/reject), malformed DRI segment length
     (libjpeg ERREXITs), stripped-APP0 YCbCr-by-heuristic streams, and
     truncation points. The env flag is latched per-process
@@ -441,7 +322,7 @@ def test_fast_reader_matches_libjpeg_fallback():
     cases.append(_encode(frame, quality=85, subsampling=0))  # 4:4:4
     cases.append(base[:len(base) // 2])                      # truncated
     cases.append(base[:len(base) - 1])
-    for f in sorted(glob.glob(os.path.join(SAMPLE1, "*.jpg")))[:6]:
+    for f in _fixture_files(DEFAULT_DIR)[20:26]:   # incl. a truncated one
         cases.append(open(f, "rb").read())
 
     d = tempfile.mkdtemp()
@@ -453,7 +334,7 @@ def test_fast_reader_matches_libjpeg_fallback():
         fp.write(
             "import json, sys, types\n"
             "import numpy as np\n"
-            "from meterelf_tpu.io import jpeg as jio\n"
+            "from meterelf_jax.io import jpeg as jio\n"
             "cfg = json.loads(sys.argv[1])\n"
             "datas = [open(f, 'rb').read() for f in cfg['files']]\n"
             "win = types.SimpleNamespace(**cfg['win'])\n"
@@ -506,34 +387,35 @@ def test_fast_reader_matches_libjpeg_fallback():
     assert ok_small[0] and ok_small[1] and ok_small[3] and ok_small[4]
 
 
-@pytest.mark.parametrize("sample_dir,rect,params_file,n", [
-    (SAMPLE1, RECT1, f"{SAMPLE1}/params.yml", 16),   # incl. both corrupt
-    (SAMPLE2, RECT2, f"{SAMPLE2}/params.yml", 8),
-])
-def test_coef_feed_readings_match_pixel_path(sample_dir, rect,
-                                             params_file, n):
+def test_coef_feed_readings_match_pixel_path(fixture_camera):
     """One jitted dispatch from DCT coefficients to readings must agree
     with the pixel-crop path on values AND error codes — including the
-    fallback scatter for the frames the coefficient reader rejects."""
-    from meterelf_tpu.params import load as load_params
-    from meterelf_tpu.pipeline.decode import (MeterDecoder,
+    fallback scatter for a frame the coefficient reader rejects (a 4:4:4
+    re-encode of the first frame)."""
+    from PIL import Image
+
+    from meterelf_jax.pipeline.decode import (MeterDecoder,
                                               make_coef_decode_fn)
 
-    files = sorted(glob.glob(os.path.join(sample_dir, "*.jpg")))[:n]
+    _name, camera_dir, params = fixture_camera
+    files = _fixture_files(camera_dir)[:16]
     datas = [open(f, "rb").read() for f in files]
-    params = load_params(params_file)
+    buf = _io.BytesIO()
+    Image.open(files[0]).save(buf, "JPEG", quality=95, subsampling=0)
+    datas.append(buf.getvalue())
     dec = MeterDecoder(params)
-    step, win, pad_hw = make_coef_decode_fn(dec, FRAME_WH)
+    step, win = make_coef_decode_fn(dec, FRAME_WH)
 
     cy, cb, cr, qt, load_ok, fbp, fbi = jio.load_coef_feed(
-        datas, params.meter_rect, FRAME_WH, pad_hw)
-    if sample_dir == SAMPLE1:
-        assert (fbi < len(datas)).sum() == 2   # the two corrupt frames
+        datas, params.meter_rect, FRAME_WH)
+    assert list(fbi[fbi < len(datas)]) == [len(datas) - 1]
     res_cf = jax.tree.map(
         np.asarray, step(dec.param_arrays, cy, cb, cr, qt,
                          load_ok, fbp, fbi))
 
-    crops_px, ok_px = jio.load_crops_threaded(files, params.meter_rect)
+    rect = params.meter_rect
+    crops_px, ok_px = jio.load_packed_crops_from_bytes(
+        datas, rect)
     res_px = dec.decode_numpy(crops_px, ok_px)
 
     np.testing.assert_array_equal(load_ok, ok_px)
@@ -548,9 +430,9 @@ def test_compact_wire_roundtrip_and_range():
     legal range at the format level, and the host packer must route
     out-of-range values to the fallback (ok=False)."""
     import jax.numpy as jnp
-    from meterelf_tpu.ops import jpegdec
+    from meterelf_jax.ops import jpegdec
 
-    files = sorted(glob.glob(os.path.join(SAMPLE1, "*.jpg")))[:12]
+    files = _fixture_files(DEFAULT_DIR)[:12]
     datas = [open(f, "rb").read() for f in files]
     win = jpegdec.coef_window(RECT1, *FRAME_WH)
     dy, db, dr, qt1, ok1 = jio.read_coefs_batch(
@@ -573,48 +455,8 @@ def test_compact_wire_roundtrip_and_range():
     np.testing.assert_array_equal(rec, v.astype(np.int32))
 
 
-def test_pallas_tail_matches_xla_tail():
-    """The fused upsample+color+pack kernel (ops/pallas_jpeg.py) must be
-    bit-identical to the XLA tail on real corpus planes (interpret mode
-    here; the compiled kernel is exercised by the TPU bench, which gates
-    on golden parity)."""
-    import jax.numpy as jnp
-    from meterelf_tpu.ops import jpegdec as jd
-    from meterelf_tpu.ops.pallas_jpeg import upsample_color_pack
-
-    files = sorted(glob.glob(os.path.join(SAMPLE1, "*.jpg")))[2:8]
-    datas = [open(f, "rb").read() for f in files]
-    win = jpegdec.coef_window(RECT1, *FRAME_WH)
-    pad_hw = jio.frontend_pad_hw()
-    cy, cb, cr, qt, ok = jio.read_coefs_batch(datas, win, FRAME_WH)
-    assert ok.all()
-
-    cbh, cbw = win.lbh // 2, win.lbw // 2
-    sy = jd._blocks_to_plane(
-        jd.idct_blocks(jnp.asarray(cy), jnp.asarray(qt)[:, 0]),
-        win.lbh, win.lbw)
-    scb = jd._blocks_to_plane(
-        jd.idct_blocks(jnp.asarray(cb), jnp.asarray(qt)[:, 1]), cbh, cbw)
-    scr = jd._blocks_to_plane(
-        jd.idct_blocks(jnp.asarray(cr), jnp.asarray(qt)[:, 2]), cbh, cbw)
-
-    ucb = jd._upsample_h2v2_fancy(scb, win.ch_valid, win.cw_valid)
-    ucr = jd._upsample_h2v2_fancy(scr, win.ch_valid, win.cw_valid)
-    oy, ox, rh, rw = win.oy, win.ox, win.rh, win.rw
-    ref = jd._ycc_to_packed_bgr(
-        sy[:, oy:oy + rh, ox:ox + rw].astype(jnp.int32),
-        ucb[:, oy:oy + rh, ox:ox + rw].astype(jnp.int32),
-        ucr[:, oy:oy + rh, ox:ox + rw].astype(jnp.int32))
-    ref = np.asarray(jnp.pad(
-        ref, ((0, 0), (0, pad_hw[0] - rh), (0, pad_hw[1] - rw))))
-
-    got = np.asarray(upsample_color_pack(
-        sy, scb, scr, win, pad_hw, interpret=True))
-    np.testing.assert_array_equal(got, ref)
-
-
 def test_coef_window_geometry():
-    win = jpegdec.coef_window(RECT1, 480, 640)
+    win = jpegdec.coef_window(RECT1, 480, 640)  # a portrait 480x640 frame
     # margin >= 2 px (1 chroma sample) on every interior side
     assert 16 * (win.lbx0 // 2) <= 50 - 2
     assert 8 * (win.lbx0 + win.lbw) >= 300 + 2

@@ -9,9 +9,7 @@ compared.
 This covers the space the golden corpus cannot: arbitrary needle
 configurations, carry-correction boundaries, unreadable dials, noisy
 masks, near-threshold contour areas, and a second camera geometry
-(ALT_CAMERA) — on this CPU suite both cameras run the generic XLA
-decode paths (the fused TPU kernels cover the same geometries via
-tests/test_ops.py::test_frontend_kernel_exact_geometries on-chip).
+(ALT_CAMERA).
 """
 import os
 
@@ -31,7 +29,7 @@ def oracle(request, tmp_path_factory):
     """(decode_frame, params, camera): the shimmed reference pipeline
     over one synthetic camera geometry."""
     import yaml
-    from meterelf_tpu import synthetic
+    from meterelf_jax import synthetic
 
     camera = (synthetic.DEFAULT_CAMERA if request.param == "default"
               else synthetic.ALT_CAMERA)
@@ -63,12 +61,12 @@ def oracle(request, tmp_path_factory):
 
 
 from fuzz_frames import fuzz_frames as _frames  # noqa: E402 (shared
-# with the on-chip gate tests/test_tpu_fuzz.py — same input space)
+# with chip_smoke.py's GPU-vs-CPU fuzz phase — same input space)
 
 
 def _run_and_compare(oracle, frames, chunk=8):
-    from meterelf_tpu.errors import ErrCode
-    from meterelf_tpu.pipeline.decode import MeterDecoder
+    from meterelf_jax.errors import ErrCode
+    from meterelf_jax.pipeline.decode import MeterDecoder
 
     decode_frame, params, camera = oracle
     (x0, y0), (x1, y1) = camera.meter_rect
@@ -128,7 +126,7 @@ _N = int(os.environ.get("METERELF_FUZZ_N", "70"))
 @pytest.mark.parametrize("seed", _SEEDS)
 def test_fuzz_against_reference_oracle(oracle, seed):
     _, _, camera = oracle
-    from meterelf_tpu import synthetic
+    from meterelf_jax import synthetic
 
     # 3 seeds x 70 frames on the fused-path camera (>= 200 total);
     # the alt geometry runs one seed through the generic paths

@@ -3,7 +3,7 @@
 /root/reference/tox.ini:2). This is its analog: build a wheel from the
 repo, install it into an isolated target dir, and prove a clean-process
 import compiles the native decoder and decodes a real frame — i.e.
-`pip install meterelf-tpu` + first use works, including the .c
+`pip install meterelf-jax` + first use works, including the .c
 package-data path.
 """
 import os
@@ -27,7 +27,7 @@ def installed_pkg(tmp_path_factory):
          "--no-build-isolation", "-w", str(wheels)],
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    whls = list(wheels.glob("meterelf_tpu-*.whl"))
+    whls = list(wheels.glob("meterelf_jax-*.whl"))
     assert len(whls) == 1, whls
     r = subprocess.run(
         [sys.executable, "-m", "pip", "install", str(whls[0]),
@@ -52,12 +52,12 @@ def test_wheel_import_and_native_decode(installed_pkg):
     if not os.path.exists(SAMPLE):
         pytest.skip("sample corpus not mounted")
     r = _run_in_site(installed_pkg, f"""
-        import meterelf_tpu
-        assert "pkg" in meterelf_tpu.__file__, meterelf_tpu.__file__
-        from meterelf_tpu.io.jpeg import decode_file
+        import meterelf_jax
+        assert "pkg" in meterelf_jax.__file__, meterelf_jax.__file__
+        from meterelf_jax.io.jpeg import decode_file
         img = decode_file({SAMPLE!r})
         assert img is not None and img.shape[2] == 3, img
-        from meterelf_tpu.params import Params
+        from meterelf_jax.params import Params
         p = Params.load("/root/reference/sample-images1/params.yml")
         assert p.meter_rect.width > 0
         print("OK", img.shape)
@@ -72,7 +72,7 @@ def test_wheel_cli_entry(installed_pkg):
     env = dict(os.environ, PYTHONPATH=str(installed_pkg),
                JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "meterelf_tpu"],
+        [sys.executable, "-m", "meterelf_jax"],
         capture_output=True, text=True, timeout=120,
         cwd=str(installed_pkg), env=env)
     assert r.returncode == 1

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from meterelf_tpu.params import (
+from meterelf_jax.params import (
     DIAL_WIN, LoadError, Params, angle_by_vector, make_dial_masks,
 )
 

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from meterelf_tpu.stream import _unwrap_delta, stream_decode, StreamReport
+from meterelf_jax.stream import _unwrap_delta, stream_decode, StreamReport
 
 pytestmark = pytest.mark.needs_samples
 
@@ -15,7 +15,7 @@ def test_unwrap_delta():
 
 def test_stream_over_sample_frames(params1, decoder1):
     from glob import glob
-    from meterelf_tpu.stream import replay_files
+    from meterelf_jax.stream import replay_files
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:8]
     frames = replay_files(params1, files, repeat=2)
@@ -36,7 +36,7 @@ def test_stream_bytes_matches_crops(params1, decoder1):
     back-half + dial decode) must produce the same rolling statistics as
     the pixel-crop stream on the same frames."""
     from glob import glob
-    from meterelf_tpu.stream import replay_files, stream_decode_bytes
+    from meterelf_jax.stream import replay_files, stream_decode_bytes
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:10]
     ts = list(np.arange(1000.0, 1000.0 + 10.0 * len(files), 10.0))
@@ -60,7 +60,7 @@ def test_stream_cli_coef_flag(capsys):
     """`--coef WxH` streams raw JPEG bytes through the coefficient
     feed."""
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:6]
     if not files:
@@ -75,12 +75,12 @@ def test_stream_cli_coef_flag(capsys):
 def test_stream_leak_detection(params1, decoder1):
     """Synthetic monotone consumption across the window trips the flag."""
     from glob import glob
-    from meterelf_tpu.io import jpeg as jio
+    from meterelf_jax.io import jpeg as jio
 
     # one good frame replayed; fake timestamps; monkeypatch values by
     # streaming the same frame and checking flow==0 gives no leak
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:3]
-    from meterelf_tpu.stream import replay_files
+    from meterelf_jax.stream import replay_files
     frames = list(replay_files(params1, files, repeat=6))
     ts = iter(np.arange(0.0, 600.0, 10.0))
     reports = list(stream_decode(
@@ -163,7 +163,7 @@ def test_stream_rejects_unrescuable_decoder():
 
 
 def test_stream_stage_timers():
-    from meterelf_tpu.profiling import StageTimers
+    from meterelf_jax.profiling import StageTimers
 
     tm = StageTimers()
     _scripted_reports([100.0 + 0.1 * i for i in range(8)], timers=tm)
@@ -172,7 +172,7 @@ def test_stream_stage_timers():
 
 
 def test_stream_cli_usage_error():
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     with pytest.raises(SystemExit) as exc:
         stream_mod.main([])
@@ -180,9 +180,9 @@ def test_stream_cli_usage_error():
 
 
 def test_stream_cli_on_sample_files(capsys):
-    """The `python -m meterelf_tpu.stream` report lines (config 5)."""
+    """The `python -m meterelf_jax.stream` report lines (config 5)."""
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:6]
     if not files:
@@ -200,7 +200,7 @@ def test_stream_cli_trace_flag(capsys, tmp_path):
     """`--trace DIR` captures a jax.profiler device trace of the run."""
     import os
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:4]
     if not files:
@@ -223,8 +223,8 @@ def test_stream_mesh_matches_single(params1, decoder1):
     on device) must equal the host-side counts."""
     import jax
     from glob import glob
-    from meterelf_tpu.parallel.mesh import make_mesh
-    from meterelf_tpu.stream import replay_files
+    from meterelf_jax.parallel.mesh import make_mesh
+    from meterelf_jax.stream import replay_files
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:10]
     ts = list(np.arange(1000.0, 1000.0 + 10.0 * 2 * len(files), 10.0))
@@ -254,7 +254,7 @@ def test_stream_cli_mesh_flag(capsys):
     """`--mesh 8` shards the stream over the virtual CPU mesh and
     appends the psum-reduced metrics to every report line."""
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:6]
     if not files:
@@ -273,8 +273,8 @@ def test_stream_bytes_mesh_matches_single(params1, decoder1):
     for report, and carry the psum-reduced device_agg."""
     import jax
     from glob import glob
-    from meterelf_tpu.parallel.mesh import make_mesh
-    from meterelf_tpu.stream import stream_decode_bytes
+    from meterelf_jax.parallel.mesh import make_mesh
+    from meterelf_jax.stream import stream_decode_bytes
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:10]
     byte_frames = [(f, open(f, "rb").read()) for f in files]
@@ -301,7 +301,7 @@ def test_stream_state_checkpoint_resume(params1, decoder1, tmp_path):
     checkpoint continues the cumulative volume and frame totals exactly
     as if it had run unbroken."""
     from glob import glob
-    from meterelf_tpu.stream import (
+    from meterelf_jax.stream import (
         _StreamState, load_state, replay_files, save_state)
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:10]
@@ -340,7 +340,7 @@ def test_stream_watch_mode_cli(tmp_path, capsys):
     resumes the totals."""
     import shutil
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:4]
     if not files:
@@ -374,8 +374,8 @@ def test_stream_bytes_matches_crops_camera2(params2):
     SECOND shipped camera too (different meter rect -> different
     coefficient window geometry through io/native + ops/jpegdec)."""
     from glob import glob
-    from meterelf_tpu.pipeline.decode import MeterDecoder
-    from meterelf_tpu.stream import replay_files, stream_decode_bytes
+    from meterelf_jax.pipeline.decode import MeterDecoder
+    from meterelf_jax.stream import replay_files, stream_decode_bytes
 
     files = sorted(glob("/root/reference/sample-images2/*.jpg"))[:8]
     dec = MeterDecoder(params2, exact=True)
@@ -402,7 +402,7 @@ def test_stream_bytes_feed_workers(params1, decoder1):
     slot merge across shard boundaries). N=2 on this 1-core box proves
     the plumbing; the scaling curve is bench.py's entropy sweep."""
     from glob import glob
-    from meterelf_tpu.stream import stream_decode_bytes
+    from meterelf_jax.stream import stream_decode_bytes
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[:8]
     if not files:
@@ -428,21 +428,17 @@ def test_feed_worker_pool_matches_inprocess(params1):
     including the fallback slots (the two corrupt frames land in
     different shards)."""
     from glob import glob
-    from meterelf_tpu.io import jpeg as jio
-    from meterelf_tpu.ops import jpegdec
-    from meterelf_tpu.stream import FeedWorkerPool
+    from meterelf_jax.io import jpeg as jio
+    from meterelf_jax.ops import jpegdec
+    from meterelf_jax.stream import FeedWorkerPool
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[:6]
     if not files:
         pytest.skip("sample corpus not mounted")
     datas = [open(f, "rb").read() for f in files]
-    pad_hw = jio.frontend_pad_hw()
     win = jpegdec.coef_window(params1.meter_rect, 480, 640)
-    plane = jpegdec.fused_tail_ok(win, pad_hw)
-    ref = jio.load_coef_feed(datas, params1.meter_rect, (480, 640),
-                             pad_hw)
-    pool = FeedWorkerPool(2, params1.meter_rect, (480, 640), pad_hw,
-                          tuple(win), plane)
+    ref = jio.load_coef_feed(datas, params1.meter_rect, (480, 640))
+    pool = FeedWorkerPool(2, params1.meter_rect, (480, 640), tuple(win))
     try:
         got = pool.load(datas)
     finally:
@@ -458,8 +454,8 @@ def test_stream_bytes_mesh_with_feed_workers(params1, decoder1):
     device_agg present on full batches."""
     import jax
     from glob import glob
-    from meterelf_tpu.parallel.mesh import make_mesh
-    from meterelf_tpu.stream import stream_decode_bytes
+    from meterelf_jax.parallel.mesh import make_mesh
+    from meterelf_jax.stream import stream_decode_bytes
 
     files = sorted(glob("/root/reference/sample-images1/*.jpg"))[2:10]
     if not files:
@@ -489,7 +485,7 @@ def test_stream_watch_bytes_mid_write(tmp_path, params1):
     emitted with its full bytes; a permanently truncated file is
     surfaced once as an error frame after max_retries."""
     from glob import glob
-    from meterelf_tpu.stream import watch_files
+    from meterelf_jax.stream import watch_files
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:3]
     if not files:
@@ -522,7 +518,7 @@ def test_stream_watch_gives_up_on_corrupt_file(tmp_path, capsys):
     re-decoding it."""
     import shutil
     from glob import glob
-    from meterelf_tpu import stream as stream_mod
+    from meterelf_jax import stream as stream_mod
 
     files = sorted(glob("/root/reference/sample-images1/2018*.jpg"))[2:3]
     if not files:

@@ -4,9 +4,9 @@ exercises the error paths with adversarial inputs."""
 import numpy as np
 import pytest
 
-from meterelf_tpu import synthetic
-from meterelf_tpu.errors import ErrCode
-from meterelf_tpu.pipeline.decode import MeterDecoder
+from meterelf_jax import synthetic
+from meterelf_jax.errors import ErrCode
+from meterelf_jax.pipeline.decode import MeterDecoder
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@ the reference logic (meterelf/_reading.py:163-182)."""
 import numpy as np
 import jax.numpy as jnp
 
-from meterelf_tpu.ops.angles import assemble_value
+from meterelf_jax.ops.angles import assemble_value
 
 
 def reference_value(r4, r3, r2, r1):
